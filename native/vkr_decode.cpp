@@ -1,4 +1,4 @@
-// Native host-side decoders for the TPU path tracing framework.
+// Native host-side decoders for the rptr JAX path tracing framework.
 //
 // The reference keeps its hot host paths in C (ext/libvkr/src/vkr.c:
 // vkr_dequantize_* are explicitly marked "TODO: Vectorize and/or

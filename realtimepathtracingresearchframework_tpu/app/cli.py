@@ -11,7 +11,7 @@ plus ``--img``, ``--upscale``, ``--config``, ``--frame``, ``--eye``,
 Scenes: ``.vks`` paths, or builtin procedural names ``cornell`` /
 ``village`` / ``terrain[:grid]`` /
 ``triangle`` (the reference ships no assets; these drive the validation
-configs of BASELINE.md).
+renders, ``bench.py`` and ``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -41,8 +41,8 @@ from realtimepathtracingresearchframework_tpu.utils.error_io import info, throw_
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="rptr-tpu",
-        description="TPU-native real-time path tracing research framework",
+        prog="rptr",
+        description="Real-time path tracing research framework (JAX)",
     )
     p.add_argument("scenes", nargs="*", help=".vks files or cornell|triangle")
     p.add_argument("--img", nargs=2, type=int, default=[1920, 1080], metavar=("W", "H"))
@@ -60,13 +60,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", "--vulkan-device", type=int, default=0)
     p.add_argument(
         "--devices", type=int, default=1,
-        help="render across N chips: swizzle chunks round-robin over "
+        help="render across N devices: swizzle chunks round-robin over "
              "per-device pass programs, scene replicated (SURVEY 5.8)",
     )
     p.add_argument("--disable-ui", action="store_true")
     p.add_argument("--freeze-frame", action="store_true")
     p.add_argument("--deduplicate-scene", action="store_true")
-    p.add_argument("--backend", default="tpu", help="render backend (tpu)")
+    p.add_argument("--backend", default="jax",
+                   help="render backend (jax: the accelerator JAX finds)")
     p.add_argument("--variant", default=None,
                    help="renderer variant (default: ini state, else "
                         f"{VARIANT_MEGAKERNEL})")
@@ -104,11 +105,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--aniso", type=int, default=0, metavar="TAPS",
         help="anisotropic texture filtering taps (0 = isotropic mip)",
-    )
-    p.add_argument(
-        "--quantized-geometry", action="store_true",
-        help="streamed path: 16-bit quantized leaf tiles decoded "
-             "in-kernel (half the HBM footprint on large scenes)",
     )
     p.add_argument(
         "--use-tlas",
@@ -258,6 +254,11 @@ def main(argv=None) -> int:
 
     import jax
 
+    from realtimepathtracingresearchframework_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     if args.devices > 1:
         avail = jax.devices()
         if args.devices > len(avail):
@@ -287,7 +288,6 @@ def main(argv=None) -> int:
         enable_taa=args.taa,
         use_tlas=args.use_tlas,
         aniso_taps=args.aniso,
-        quantized_geometry=args.quantized_geometry,
     )
     renderer.options = opts
     renderer.freeze_frame = bool(args.freeze_frame)
@@ -391,12 +391,12 @@ def main(argv=None) -> int:
 
     if not args.disable_ui:
         # default mode: interactive viewer (main.cpp run_app loop; the
-        # display is a localhost web canvas on headless TPU hosts)
+        # display is a localhost web canvas on headless hosts)
         from realtimepathtracingresearchframework_tpu.app.viewer import (
             InteractiveViewer,
         )
 
-        app_ini = os.path.expanduser("~/.rptr_tpu.ini")
+        app_ini = os.path.expanduser("~/.rptr.ini")
         viewer = InteractiveViewer(
             renderer, bundle, ims,
             port=int(os.environ.get("RPTR_VIEWER_PORT", "8421")),

@@ -1,6 +1,6 @@
 """RenderExtension framework: the backend's extensibility surface.
 
-TPU-native equivalent of ``RenderExtension``
+Equivalent of ``RenderExtension``
 (librender/render_backend.h:126-154) plus the processing-step enum and
 factory (render_vulkan_extensions.cpp:16-84). Lifecycle hooks keep the
 reference names and call order:
@@ -71,7 +71,7 @@ class RenderExtension:
         """Called after set_scene on the backend."""
 
     def contribute_scene_payload(self, payload: Dict, scene_config) -> None:
-        """TPU adaptation of the bind-point upload: add arrays to the
+        """Counterpart of the bind-point upload: add arrays to the
         DeviceScene assembly (see module docstring)."""
 
     # -- options ----------------------------------------------------------
@@ -188,7 +188,7 @@ class BinnedLightsExtension(RenderExtension):
         # clamp the bin width to the real emitter count: a 16-slot bin
         # holding 2 lights + 14 zero-radiance pads selects identically
         # (zero scores never win) but pays 8x the RIS scoring math per
-        # shadow-ray candidate on the VPU
+        # shadow-ray candidate
         bs = min(
             int(self.backend.options.light_sampling_bucket_count),
             max(int(tl.count), 1),

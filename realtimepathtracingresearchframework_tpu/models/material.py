@@ -27,7 +27,7 @@ BASE_MATERIAL_VOLUME = 0x04
 BASE_MATERIAL_EXTENDED = 0x08
 BASE_MATERIAL_NEURAL = 0x10
 # repo-internal: the THIN_TRANSMISSION_HIT hit-group assignment
-# (vulkan/CMakeLists.txt:38-39) expressed as a material flag — on TPU the
+# (vulkan/CMakeLists.txt:38-39) expressed as a material flag — here the
 # hit "shader" is selected data-driven rather than via the SBT
 BASE_MATERIAL_THIN = 0x20
 

@@ -6,7 +6,7 @@ meshes with quantized buffers, parameterized meshes binding materials to
 geometry, instances with animated transform indices, materials, textures,
 lights, and revision counters driving incremental device updates.
 
-TPU representation: ``flatten_world()`` decodes + transforms everything into
+Device representation: ``flatten_world()`` decodes + transforms everything into
 a world-space struct-of-arrays triangle soup (``FlatScene``) consumed by the
 BVH builder and the integrators. Instancing with a two-level BVH keeps the
 per-mesh structure (see ops/bvh.py TLAS support).
@@ -273,7 +273,7 @@ class Scene:
                 mat.flags |= BASE_MATERIAL_NOALPHA
             # name-keyword shader assignment (scene.cpp:678-706): artists
             # force a shading path by embedding _SHADERMATERIAL_<KIND> in
-            # the material name. On TPU the hit-shader selection is
+            # the material name. Here the hit-shader selection is
             # data-driven, so keywords resolve to material parameters.
             uname = vm.name.upper()
             if "_SHADERMATERIAL_SIMPLIFIED" in uname:

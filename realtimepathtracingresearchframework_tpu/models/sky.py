@@ -24,6 +24,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -158,9 +159,9 @@ def build_sky(
         sun_radiance=jnp.asarray(sun_radiance, jnp.float32),
         scale=jnp.float32(scale),
     )
-    # note: measured on v5e, the analytic Perez evaluation (~15
-    # transcendentals) is FASTER than 4 table gathers, so the baked map is
-    # opt-in (bake_sky_image) and the default stays analytic
+    # the analytic Perez evaluation (~15 transcendentals) replaces 4
+    # table gathers, so the baked map is opt-in (bake_sky_image) and the
+    # default stays analytic
     return params
 
 
@@ -287,7 +288,8 @@ def _sky_radiance_analytic(params: SkyParams, d):
     X = x / yc * lum
     Z = (1.0 - x - yc) / yc * lum
     xyz = jnp.stack([X, lum, Z], axis=-1)
-    rgb = xyz @ jnp.asarray(_XYZ_TO_SRGB, jnp.float32).T
+    rgb = jnp.matmul(xyz, jnp.asarray(_XYZ_TO_SRGB, jnp.float32).T,
+                     precision=jax.lax.Precision.HIGHEST)
     rgb = jnp.maximum(rgb, 0.0) * params.scale
     return rgb * ocean[..., None]
 
@@ -310,7 +312,7 @@ def sun_visible_radiance(params: SkyParams, d):
 def _sky_radiance_analytic_v(params: SkyParams, d):
     """SoA analytic sky: ``d`` is a vec3.Vec3; returns Vec3. Same math as
     _sky_radiance_analytic with the xyY->XYZ->sRGB matrix written out as
-    scalar dot products (full VPU lane width, see ops/vec3.py)."""
+    scalar dot products (SoA, see ops/vec3.py)."""
     from realtimepathtracingresearchframework_tpu.ops.vec3 import Vec3
 
     y = d.y

@@ -854,7 +854,7 @@ if __name__ == "__main__":
 def optimize_mesh(mesh: "VkrMesh") -> "VkrMesh":
     """Spatial-locality triangle reorder — the vkr_optimize_mesh analogue
     (vkr.h:433-437, meshoptimizer). The reference optimizes for GPU vertex
-    caches; with implicit-index triangle soup on TPU the equivalent lever
+    caches; with implicit-index triangle soup here the equivalent lever
     is BVH leaf coherence, so triangles are Morton-ordered by centroid
     (segment boundaries and material ids move with their triangles)."""
     from realtimepathtracingresearchframework_tpu.models.quantization import (

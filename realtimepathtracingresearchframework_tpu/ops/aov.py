@@ -23,7 +23,7 @@ import numpy as np
 
 from realtimepathtracingresearchframework_tpu.ops import pointsets
 from realtimepathtracingresearchframework_tpu.ops import tlas as tlas_mod
-from realtimepathtracingresearchframework_tpu.ops import traverse_pallas
+from realtimepathtracingresearchframework_tpu.ops import traverse_gpu
 from realtimepathtracingresearchframework_tpu.ops.bsdf_gltf import (
     material_from_table,
 )
@@ -69,14 +69,8 @@ def render_aovs(
 
     if cfg.two_level:
         hit = tlas_mod.closest_hit_two_level(ds.tlas, ro, rd)
-    elif cfg.streamed:
-        from realtimepathtracingresearchframework_tpu.ops import traverse_stream
-
-        hit = traverse_stream.closest_hit_streamed(ds.bvh, ro, rd)
-    elif cfg.use_pallas:
-        hit = traverse_pallas.closest_hit_pallas(
-            ds.bvh, ro, rd, map_tri=not cfg.row_attrs
-        )
+    elif cfg.traversal == "gpu":
+        hit = traverse_gpu.closest_hit_gpu(ds.bvh, ro, rd)
     else:
         hit = closest_hit_threaded(ds.bvh, ro, rd)
     was_hit = hit.tri >= 0
@@ -94,7 +88,8 @@ def render_aovs(
         # object -> world, per instance (see integrator visit_hit)
         inst = jnp.maximum(hit.inst, 0)
         Ait = ds.tlas.inst_inv_t[inst].reshape(-1, 3, 3)
-        n_sh = jnp.einsum("nab,nb->na", Ait, n_sh)
+        # elementwise, not a matmul: a float32 matmul may run in TF32
+        n_sh = jnp.sum(Ait * n_sh[:, None, :], axis=-1)
         mid = mid + ds.tlas.inst_mat_offset[inst]
     n_sh = n_sh / jnp.maximum(jnp.linalg.norm(n_sh, axis=-1, keepdims=True), 1e-20)
     mat = material_from_table(ds.materials, mid)

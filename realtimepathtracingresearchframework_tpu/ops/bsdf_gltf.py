@@ -12,12 +12,12 @@ Port of the reference's production BSDF
   (``gltf_wpdf``, :414-497).
 
 All control flow is mask-based (``jnp.where``) so each function is one
-fixed-shape vector program over batched shading points — the TPU analogue
+fixed-shape vector program over batched shading points — the counterpart
 of the divergence-free intent of the reference's component-sampler design.
 
 The core implementations (``*_v``) are SoA: directions and colors are
-``vec3.Vec3`` triples of 1-D arrays, keeping every op on the full 128-lane
-VPU width (an (N, 3) array wastes the lane dimension — see ops/vec3.py).
+``vec3.Vec3`` triples of 1-D arrays, keeping every op a contiguous 1-D
+stream (see ops/vec3.py).
 The array-shaped wrappers (`gltf_bsdf`, `gltf_wpdf`, `sample_gltf_brdf`)
 keep the original (..., 3) signatures for tests and tools.
 
@@ -408,9 +408,8 @@ def sample_gltf_brdf_v(
     # weight" -> invalid sample (path terminates). Collapsing to a 2-way
     # select would silently re-route those rare lanes to specular.
     component = jnp.where(r < cdf1, 0, jnp.where(r < cdf2, 1, 2))
-    # guard: component must have nonzero weight (arithmetic select — a
-    # take_along_axis gather stages its index vector through scalar
-    # memory at ~3.7ms per 262K lanes)
+    # guard: component must have nonzero weight (arithmetic select
+    # instead of a take_along_axis gather)
     wsel = jnp.where(component == 0, w0, jnp.where(component == 1, w1, w2))
 
     # build w_i per component (thin: transmission lanes use their own

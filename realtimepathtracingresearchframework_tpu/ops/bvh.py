@@ -2,14 +2,14 @@
 
 Replaces the reference's Vulkan acceleration-structure builds
 (``vulkan/vulkanrt_utils.h:55-187``: BLAS build -> compaction -> TLAS) with
-an explicit flattened BVH2 we traverse ourselves on TPU:
+an explicit flattened BVH2 we traverse ourselves:
 
 - Triangles are Morton-sorted and grouped into fixed-size leaves of
   ``LEAF_SIZE`` (padding with duplicated triangles, so device leaf
   intersection is a fixed-width vector op — no variable-length loops).
 - The tree over leaves is a *balanced median split over Morton order*:
-  depth is exactly ``ceil(log2(L))``, which bounds the lockstep traversal
-  loop and the traversal stack on TPU (divergence-free worst case), at a
+  depth is exactly ``ceil(log2(L))``, which bounds the traversal loop
+  (divergence-free worst case), at a
   small quality cost vs SAH. (SAH/collapse is a planned optimization; the
   "compaction" step of the reference corresponds to the dense array
   repacking we do by construction.)
@@ -75,8 +75,8 @@ def build_bvh(
     """Build from triangle soup (v0, edge1, edge2), each (T,3) float32.
 
     ``leaf_size`` trades tree depth (traversal steps, the latency-bound
-    currency on TPU) against dense per-leaf intersection work (the cheap
-    currency); the Pallas kernel uses 128, the XLA fallback 4.
+    currency) against dense per-leaf intersection work (the cheap
+    currency); both traversals use ``LEAF_SIZE``.
     """
     v0 = np.asarray(v0, np.float32)
     v1 = v0 + np.asarray(e1, np.float32)
@@ -199,9 +199,10 @@ def build_bvh(
 
 @dataclass
 class ThreadedBVH:
-    """Stackless DFS-threaded layout for TPU traversal (ops/traverse.py).
+    """Stackless DFS-threaded layout for traversal (ops/traverse.py,
+    ops/traverse_gpu.py).
 
-    TPUs have no efficient per-lane stacks (scatter-heavy under vmap), so
+    Per-lane stacks are scatter-heavy under vmap, so
     traversal follows preorder with *skip links*: on AABB hit the next node
     is ``cur + 1`` (preorder child), on miss/leaf it is ``skip[cur]`` (next
     subtree in preorder). One contiguous row gather per step, zero scatters.
@@ -529,9 +530,7 @@ def refit_bvh(bvh: BVH, v0: np.ndarray, e1: np.ndarray, e2: np.ndarray) -> BVH:
     UpdateBLAS path, vulkanrt_utils.h:92-101). Vectorized host numpy by
     design: the refit output must be re-threaded and re-uploaded with
     the moved vertex arrays anyway (both host-side), so a device kernel
-    would only move the cheapest step; the streamed path's
-    traverse_stream.refit_streamed applies the same level-sweep trick
-    directly in the packed kernel layout."""
+    would only move the cheapest step."""
     v0 = np.asarray(v0, np.float32)
     v1 = v0 + e1
     v2 = v0 + e2

@@ -3,7 +3,7 @@
 The analogue of the fixed-function/HW intersection the reference gets from
 ``rayQueryEXT`` (vulkan/pt_megakernel.glsl:440-478). Möller-Trumbore over
 precomputed (v0, e1, e2); slab test for AABBs. All functions are written
-for ``vmap`` over rays with small static inner dimensions (VPU-friendly).
+for ``vmap`` over rays with small static inner dimensions.
 """
 
 from __future__ import annotations

@@ -212,7 +212,7 @@ def sample_tri_lights_v(
         px, py, pz = hit_p
         if num_bins == 1:
             # single bin: broadcast the tiny light table instead of (N,16)
-            # gathers — gathers are the costly primitive on TPU
+            # gathers
             def bc(col):
                 return Vec3(
                     col.x[None, :] - px[..., None],

@@ -1,15 +1,15 @@
 """Raster G-buffer pipeline (the optional ENABLE_RASTER path).
 
-TPU-native analogue of the reference's raster pipeline
+Counterpart of the reference's raster pipeline
 (vulkan/pipeline_raster/raster_scene_vulkan.{h,cpp}, basic.vert/frag):
 projects the scene's triangles with the pinhole camera and z-buffers a
 shaded G-buffer (albedo, shading normal, depth, triangle id). The
 reference uses it as a debug/compat path next to the RT pipelines; here
 the "rasterizer" is a dense batched coverage test — for every triangle
-batch, barycentrics are evaluated for all pixels on the VPU and the
+batch, barycentrics are evaluated for all pixels and the
 nearest hit is kept with a `lax.scan` (a z-buffer as a running minimum).
-That is the TPU-idiomatic formulation: no scatter-based triangle
-binning, fixed shapes, MXU/VPU-friendly (T x P) broadcasts.
+That is the array-program formulation: no scatter-based triangle
+binning, fixed shapes, dense (T x P) broadcasts.
 
 Cost scales with triangles x pixels, so this is a small-scene debug
 path, matching the reference's positioning (the survey marks the raster

@@ -42,8 +42,8 @@ def resolve_channels(channels, exposure, tonemap_mode: int = -1):
     """Channel-separate resolve: ``channels`` = (r, g, b, a) 1-D linear
     accumulation buffers -> (r, g, b, a) sRGB display buffers. Same math
     as resolve_framebuffer minus the upscale (the host blit replicates
-    pixels when upscaling). Channels stay separate 1-D arrays: a packed
-    (N, 4) or (4, N) array forces degenerate TPU tiling; the host readback
+    pixels when upscaling). Channels stay separate 1-D arrays (the
+    planar layout of the accumulators); the host readback
     interleaves, like the reference's swapchain blit
     (vulkan/vkdisplay.cpp display_native)."""
     scale = jnp.exp2(exposure)

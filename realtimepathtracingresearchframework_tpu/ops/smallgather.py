@@ -1,10 +1,10 @@
 """Small-table row selection without gather ops.
 
-On TPU, a gather's index vector is staged through scalar memory; profiling
-shows each distinct (N,) index costs ~2ms per 262K lanes at that boundary
-regardless of table size. For small tables an unrolled compare+select runs
-entirely on the VPU: ``sum_k (idx==k) * table[k]`` with static k. The
-threshold keeps the select chain shorter than the staging cost.
+For small tables an unrolled compare+select replaces the gather with
+elementwise math that fuses into its neighbours: ``sum_k (idx==k) *
+table[k]`` with static k. The threshold keeps the select chain short.
+Written for an earlier hardware target on which every gather index
+vector was expensive; not measured against a plain gather on the GPU.
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@
   motion AOV and blended with a bounded accumulation window
   (process_samples.comp:105-110).
 
-Dense, fixed-shape vector math over full (H,W) buffers — classic TPU work.
+Dense, fixed-shape vector math over full (H,W) buffers.
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ def _bilinear_sample(img, uv):
 def _lanczos_sample(img, uv, radius: int = 3):
     """Lanczos-windowed reconstruction (process_taa.comp:28-52); radius
     reduced from 5 to 3 (36 taps) — the window difference is visually
-    negligible and keeps the tap count TPU-friendly."""
+    negligible and keeps the tap count low."""
     h, w = img.shape[:2]
     dims = jnp.array([w, h], jnp.float32)
     point = uv * dims - 0.5

@@ -1,6 +1,6 @@
 """Device texture atlas + filtered sampling.
 
-TPUs have no texture units, so the reference's sampled BCn textures
+JAX has no texture-unit access, so the reference's sampled BCn textures
 (vulkan/render_vulkan.cpp:1646-1739, rt/material_textures.glsl) become:
 - load time: BCn decoded to RGBA8 mips (models/texture.py), every mip of
   every texture packed into ONE flat u32 texel array + a descriptor table
@@ -12,14 +12,14 @@ TPUs have no texture units, so the reference's sampled BCn textures
   footprint transport, rt/footprint.glsl — full anisotropic transport is a
   tracked refinement).
 
-Gather cost is per-INDEX on TPU (measured round 5, prof/prof_r5_atlas.py:
-a 4.6 ms (524K,) gather costs the same whether it fetches 4 B or a 16 B
-row), so the sampler is built to MINIMIZE gather count per lookup:
+The sampler is built to MINIMIZE gather count per lookup (on the
+hardware target this was written for, a gather cost the same whether it
+fetched 4 B or a 16 B row; not measured on the GPU):
 
 - ``texels_quad`` pre-packs each texel's bilinear 2x2 neighborhood
   (wrap-resolved at build time) into one (P, 4) row — the 4 corner
-  gathers collapse to ONE row gather (20.7 -> ~4.6 ms per 524K lookup,
-  4.5x). Costs 4x atlas memory; gated by RPTR_ATLAS_QUAD / a size cap.
+  gathers collapse to ONE row gather. Costs 4x atlas memory; gated by
+  RPTR_ATLAS_QUAD / a size cap.
 - ``desc4`` folds (offset, width, height, srgb) into one (T*MAX_MIPS, 4)
   row gather and removes the separate num_mips lookup entirely: build
   time already clamps missing finer mips to the last real one, so
@@ -242,8 +242,8 @@ def sample_atlas_aniso(atlas: TextureAtlas, tex_id, uv, duvdx, duvdy,
 
     duvdx/duvdy are (N,2) UV-space footprint derivative vectors. The
     effective minor length is clamped to major/taps (hardware MAX_ANISO
-    clamp) so the tap line always covers the footprint. TPU has no
-    sampler hardware, so each tap is a full gather set — callers gate
+    clamp) so the tap line always covers the footprint. There is no
+    sampler hardware here, so each tap is a full gather set — callers gate
     this behind an option (cost scales linearly with taps)."""
     tid = jnp.maximum(tex_id, 0)
     d0 = atlas.desc[tid, 0]

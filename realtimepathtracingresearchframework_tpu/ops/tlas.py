@@ -4,7 +4,7 @@ TLAS over instances.
 The reference's BLAS/TLAS split (vulkan/vulkanrt_utils.h:55-187:
 ``TriangleMesh`` BLAS over geometries, ``TopLevelBVH`` from the instance
 buffer, refit support; TLAS rebuild/refit queue render_vulkan.cpp:1219-1366)
-re-expressed TPU-style:
+re-expressed for a software walk:
 
 - each unique mesh gets a **threaded BLAS** in object space, built once and
   concatenated into shared arrays (node links are BLAS-local);
@@ -70,8 +70,6 @@ class TwoLevelBuffers(NamedTuple):
     inst_linear: jnp.ndarray  # (I,9) world_from_object linear A
     inst_inv_t: jnp.ndarray  # (I,9) A^-T (normal transform)
     inst_scale: jnp.ndarray  # (I,) cbrt|det A| (texel-density scale)
-    inst_cull_scale: jnp.ndarray  # (I,) sigma_min(A): conservative
-    # object-distance -> world-t factor for the Pallas culling test
     inst_sign: jnp.ndarray  # (I,) handedness sign(det A)
     inst_mesh: jnp.ndarray  # (I,) i32
     inst_mat_offset: jnp.ndarray  # (I,) i32
@@ -169,11 +167,6 @@ def build_instance_tables(blas: BlasSet, mesh_ids, mat_offsets, transforms):
     tinv = -np.einsum("iab,ib->ia", Ainv, t)
     det = np.linalg.det(A)
     scale = np.cbrt(np.abs(det))
-    # conservative culling scale: |A^-1 d| <= 1/sigma_min for unit d, so
-    # object_distance * sigma_min lower-bounds the world t to reach it.
-    # Equals cbrt|det| for uniform scales; strictly smaller (= safe,
-    # never over-culls) for anisotropic instance transforms.
-    cull_scale = np.linalg.svd(A, compute_uv=False)[:, -1]
     inv12 = np.concatenate([Ainv.reshape(-1, 9), tinv], axis=1).astype(np.float32)
     return dict(
         inst_inv=jnp.asarray(inv12),
@@ -182,7 +175,6 @@ def build_instance_tables(blas: BlasSet, mesh_ids, mat_offsets, transforms):
             np.transpose(Ainv, (0, 2, 1)).reshape(-1, 9).astype(np.float32)
         ),
         inst_scale=jnp.asarray(scale.astype(np.float32)),
-        inst_cull_scale=jnp.asarray(cull_scale.astype(np.float32)),
         inst_sign=jnp.asarray(np.sign(det).astype(np.float32)),
         inst_mesh=jnp.asarray(mesh_ids.astype(np.int32)),
         inst_mat_offset=jnp.asarray(np.asarray(mat_offsets, np.int32)),
@@ -204,8 +196,9 @@ def _blas_walk(tb: TwoLevelBuffers, inst, ro_w, rd_w, t_min, t_best_in,
     inv = tb.inst_inv[inst]
     Ai = inv[0:9].reshape(3, 3)
     ti = inv[9:12]
-    ro = Ai @ ro_w + ti
-    rd = Ai @ rd_w  # NOT normalized: preserves world t
+    # elementwise products, not matmuls (a float32 matmul may run in TF32)
+    ro = jnp.sum(Ai * ro_w[None, :], axis=-1) + ti
+    rd = jnp.sum(Ai * rd_w[None, :], axis=-1)  # NOT normalized: world t
     inv_rd = safe_inv_dir(rd)
     start = tb.inst_node_start[inst]
     count = tb.inst_node_count[inst]

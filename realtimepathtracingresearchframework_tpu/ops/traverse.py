@@ -10,7 +10,7 @@ of the flattened BVH2 from ops/bvh.py:
   either pushes internal children (near child popped first) or intersects
   the fixed-width leaf (LEAF_SIZE triangles) inline — so an iteration is a
   fixed-shape vector op with no data-dependent branches, only masks
-  (the TPU analogue of the reference's EXPLICIT_MASK divergence handling,
+  (the counterpart of the reference's EXPLICIT_MASK divergence handling,
   pt_megakernel.glsl:369-388).
 - ``any_hit`` mode early-outs for NEE shadow rays
   (raytrace_test_visibility, rendering/mc/nee.glsl:32).
@@ -154,147 +154,6 @@ def _traverse_threaded_single(tb: ThreadedBuffers, ro, rd, t_min, t_max,
     miss = best_row < 0
     tri = jnp.where(miss, -1, tb.row_tri[jnp.maximum(best_row, 0)])
     return Hit(t=jnp.where(miss, T_MAX, t_best), tri=tri, u=best_u, v=best_v)
-
-
-def _traverse_packet(tb: ThreadedBuffers, ro, rd, t_min, t_max, any_hit: bool,
-                     leaf_size: int = LEAF_SIZE):
-    """Packet traversal: P rays share ONE scalar cursor over the threaded
-    BVH (vmapped over packets by callers).
-
-    This is the lockstep execution model of the reference's 32x16 compute
-    workgroups with EXPLICIT_MASK (pt_megakernel.glsl:369-388) made
-    explicit: the packet descends into a subtree if ANY live lane hits the
-    child AABB; leaf triangles are tested densely against all P lanes.
-    TPU-native because the per-step node fetch is a scalar-indexed row
-    (no per-lane gathers) and everything else is (P,)-wide VPU math.
-
-    ro/rd: (P,3); t_min/t_max: (P,). Returns per-lane results.
-    """
-    inv_rd = safe_inv_dir(rd)
-    m = tb.nodes.shape[0]
-    p = ro.shape[0]
-
-    def cond(c):
-        cur = c[0]
-        if any_hit:
-            return (cur < m) & ~jnp.all(c[5])
-        return cur < m
-
-    def body(c):
-        cur, t_best, best_row, best_u, best_v, done = c
-        rec = jax.lax.dynamic_slice(tb.nodes, (cur, jnp.int32(0)), (1, 8))[0]
-        bmin = rec[0:3]
-        bmax = rec[3:6]
-        skip = jax.lax.bitcast_convert_type(rec[6], jnp.int32)
-        leaf_row = jax.lax.bitcast_convert_type(rec[7], jnp.int32)
-
-        hit_box, _ = ray_aabb(ro, inv_rd, bmin[None, :], bmax[None, :], t_min, t_best)
-        live = hit_box if not any_hit else (hit_box & ~done)
-        any_live = jnp.any(live)
-        is_leaf = leaf_row >= 0
-
-        rows = jax.lax.dynamic_slice(
-            tb.tri_rows, (jnp.maximum(leaf_row, 0), jnp.int32(0)), (leaf_size, 12)
-        )
-        # dense (P, leaf_size) intersection
-        h, t, u, v = ray_tri(
-            ro[:, None, :],
-            rd[:, None, :],
-            rows[None, :, 0:3],
-            rows[None, :, 3:6],
-            rows[None, :, 6:9],
-            t_min[:, None],
-            t_best[:, None],
-        )
-        h = h & (is_leaf & any_live) & live[:, None]
-        t = jnp.where(h, t, T_MAX)
-        k = jnp.argmin(t, axis=-1)
-        tk = jnp.take_along_axis(t, k[:, None], axis=-1)[:, 0]
-        better = tk < t_best
-        t_best = jnp.where(better, tk, t_best)
-        best_row = jnp.where(better, leaf_row + k.astype(jnp.int32), best_row)
-        best_u = jnp.where(
-            better, jnp.take_along_axis(u, k[:, None], axis=-1)[:, 0], best_u
-        )
-        best_v = jnp.where(
-            better, jnp.take_along_axis(v, k[:, None], axis=-1)[:, 0], best_v
-        )
-        if any_hit:
-            done = done | jnp.any(h, axis=-1)
-
-        nxt = jnp.where(any_live & ~is_leaf, cur + 1, skip)
-        return (nxt, t_best, best_row, best_u, best_v, done)
-
-    init = (
-        jnp.int32(0),
-        jnp.asarray(t_max, jnp.float32),
-        jnp.full((p,), -1, jnp.int32),
-        jnp.zeros((p,), jnp.float32),
-        jnp.zeros((p,), jnp.float32),
-        jnp.zeros((p,), bool),
-    )
-    cur, t_best, best_row, best_u, best_v, done = jax.lax.while_loop(
-        cond, body, init
-    )
-    if any_hit:
-        return done
-    miss = best_row < 0
-    tri = jnp.where(miss, -1, tb.row_tri[jnp.maximum(best_row, 0)])
-    return Hit(t=jnp.where(miss, T_MAX, t_best), tri=tri, u=best_u, v=best_v)
-
-
-PACKET_SIZE = 128
-
-
-def _packetize(f, tb, ro, rd, t_min, t_max, packet_size):
-    n = ro.shape[0]
-    pad = (-n) % packet_size
-    if pad:
-        ro = jnp.concatenate([ro, jnp.broadcast_to(ro[-1:], (pad, 3))])
-        rd = jnp.concatenate([rd, jnp.broadcast_to(rd[-1:], (pad, 3))])
-        t_min = jnp.concatenate([t_min, jnp.zeros((pad,), jnp.float32)])
-        t_max = jnp.concatenate([t_max, jnp.zeros((pad,), jnp.float32)])
-    shape = (-1, packet_size)
-    out = jax.vmap(lambda o, d, tn, tf: f(tb, o, d, tn, tf))(
-        ro.reshape(*shape, 3),
-        rd.reshape(*shape, 3),
-        t_min.reshape(shape),
-        t_max.reshape(shape),
-    )
-    return out, n
-
-
-def closest_hit_packet(
-    tb: ThreadedBuffers, ro, rd, t_min=0.0, t_max=T_MAX,
-    packet_size: int = PACKET_SIZE,
-) -> Hit:
-    """Batched packet closest-hit (rays padded to a packet multiple)."""
-    t_min = jnp.broadcast_to(jnp.asarray(t_min, jnp.float32), ro.shape[:-1])
-    t_max = jnp.broadcast_to(jnp.asarray(t_max, jnp.float32), ro.shape[:-1])
-    out, n = _packetize(
-        lambda tb_, o, d, tn, tf: _traverse_packet(tb_, o, d, tn, tf, False),
-        tb, ro, rd, t_min, t_max, packet_size,
-    )
-    return Hit(
-        t=out.t.reshape(-1)[:n],
-        tri=out.tri.reshape(-1)[:n],
-        u=out.u.reshape(-1)[:n],
-        v=out.v.reshape(-1)[:n],
-    )
-
-
-def occluded_packet(
-    tb: ThreadedBuffers, ro, rd, t_min=0.0, t_max=T_MAX,
-    packet_size: int = PACKET_SIZE,
-):
-    """Batched packet any-hit visibility."""
-    t_min = jnp.broadcast_to(jnp.asarray(t_min, jnp.float32), ro.shape[:-1])
-    t_max = jnp.broadcast_to(jnp.asarray(t_max, jnp.float32), ro.shape[:-1])
-    out, n = _packetize(
-        lambda tb_, o, d, tn, tf: _traverse_packet(tb_, o, d, tn, tf, True),
-        tb, ro, rd, t_min, t_max, packet_size,
-    )
-    return out.reshape(-1)[:n]
 
 
 def closest_hit_threaded(

@@ -1,10 +1,9 @@
 """SoA 3-vectors: three 1-D component arrays instead of one (N, 3) array.
 
-On TPU an (N, 3) f32 array tiles its minor dimension onto the 128-wide
-vector lanes, so elementwise math on packed vectors runs at ~3/128 lane
-utilization unless XLA happens to re-layout it; profiling the integrator
-showed ~1.7x on exactly these chains (BASELINE.md). Carrying vectors as
-three (N,) components keeps every op fully lane-parallel and lets the
+An (N, 3) f32 array puts the 3 on its minor dimension, so elementwise
+math on packed vectors strides over it unless XLA re-lays it out.
+Carrying vectors as three (N,) components keeps every op a contiguous
+1-D stream and lets the
 bounce-loop carry stay flat (ops/integrator.py _split3 — this module is
 that treatment promoted to the whole shading path).
 

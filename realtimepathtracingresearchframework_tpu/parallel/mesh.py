@@ -1,10 +1,12 @@
 """Device mesh helpers.
 
 The reference is single-GPU; its parallel axes are the SIMT dispatch grid
-and dual Vulkan queues (SURVEY section 2.6). The TPU-native scaling axis is
-a ``jax.sharding.Mesh`` of chips with the pixel grid sharded in row tiles
-and the scene (SoA arrays + BVH) replicated into every chip's HBM; ICI
+and dual Vulkan queues (SURVEY section 2.6). The scaling axis here is a
+``jax.sharding.Mesh`` of devices with the pixel grid sharded in row tiles
+and the scene (SoA arrays + BVH) replicated into every device's memory;
 collectives only assemble the framebuffer / reduce stats (SURVEY 5.8).
+The cards of one host are joined all to all, so the mesh shape follows
+the tiling alone.
 """
 
 from __future__ import annotations
@@ -29,8 +31,7 @@ def make_mesh(devices: Optional[Sequence] = None, axis_name: str = TILE_AXIS) ->
 def make_mesh_2d(rows: int, cols: int,
                  devices: Optional[Sequence] = None) -> Mesh:
     """2-D (tile_y, tile_x) mesh: the pixel grid shards in both rows and
-    columns (SURVEY 5.8's 1-D/2-D mesh plan); on real hardware lay the
-    axes on the ICI torus dims."""
+    columns (SURVEY 5.8's 1-D/2-D mesh plan)."""
     devices = list(devices) if devices is not None else jax.devices()
     if len(devices) < rows * cols:
         raise ValueError(f"need {rows * cols} devices, have {len(devices)}")

@@ -1,7 +1,8 @@
-"""Multi-chip tile-parallel rendering via shard_map.
+"""Multi-device tile-parallel rendering via shard_map.
 
-Data-parallel over rays: each chip renders a horizontal band of the pixel
-grid with the full scene replicated in its HBM. Collectives are limited to
+Data-parallel over rays: each device renders a horizontal band of the
+pixel grid with the full scene replicated in its memory. Collectives are
+limited to
 (a) the implicit all-gather when the host assembles the framebuffer and
 (b) a psum of ray counters — matching the thin communication plan of
 SURVEY section 5.8 (no gradient/optimizer traffic exists).
@@ -65,9 +66,9 @@ def build_sharded_render(mesh, cfg: IntegratorConfig, width: int, height: int):
 
 def build_sharded_render_2d(mesh, cfg: IntegratorConfig, width: int,
                             height: int):
-    """2-D (tile_y, tile_x) sharding: each chip renders an
+    """2-D (tile_y, tile_x) sharding: each device renders an
     (H/rows, W/cols) pixel tile; the framebuffer is sharded in both dims
-    and ray counters psum over both axes. Scene replicated per chip."""
+    and ray counters psum over both axes. Scene replicated per device."""
     rows = mesh.shape[TILE_Y_AXIS]
     cols = mesh.shape[TILE_X_AXIS]
     if height % rows != 0 or width % cols != 0:

@@ -95,7 +95,7 @@ def export_scene_data(
 # ---------------------------------------------------------------------------
 
 bl_info = {
-    "name": "Export .vks (TPU path tracing framework)",
+    "name": "Export .vks (rptr JAX path tracing framework)",
     "blender": (3, 0, 0),
     "category": "Import-Export",
 }

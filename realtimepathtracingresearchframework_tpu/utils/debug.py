@@ -1,4 +1,4 @@
-"""Numerical watchdogs — the TPU analogue of the reference's runtime
+"""Numerical watchdogs — the counterpart of the reference's runtime
 validation stack (SURVEY §5.2).
 
 The reference leans on Vulkan validation layers + CHECK_VULKAN everywhere

@@ -1,6 +1,6 @@
 """Leveled colored console logging and error funnel.
 
-TPU-native equivalent of ``util/error_io.{h,cpp}``: ``println(CLL::...)``,
+Equivalent of ``util/error_io.{h,cpp}``: ``println(CLL::...)``,
 ``warning(...)``, ``throw_error(...)``.
 """
 

@@ -1,6 +1,6 @@
 """CPU + device profiling scopes.
 
-TPU-native equivalent of:
+Equivalent of:
 - RAII ``ProfilingScope`` with static per-site records and hierarchical dump
   (``util/profiling.h:8-68``).
 - GPU timestamp markers (``vulkan/profiling/profiling_scopes.h:20-198``):

@@ -106,7 +106,7 @@ def test_lod_selection():
 
 
 def test_lod_selection_drives_renderer():
-    """Camera-aware LoD through the RENDERER (VERDICT r2 weak #5): the
+    """Camera-aware LoD through the RENDERER: the
     render path re-flattens when the camera's LoD selection changes
     (util/lod.cpp; per-LoD offset render_vulkan.cpp:1244-1248), and
     leaves the geometry alone while the selection is stable."""
@@ -167,44 +167,43 @@ def test_lod_selection_drives_renderer():
     assert r._flat.num_tris == 4
 
 
-def test_tlas_pallas_animation_repack(monkeypatch):
-    """Animation under the Pallas two-level kernel: set_animation_frame
-    repacks only the TLAS side (static BLAS device arrays reused) and
-    ray queries follow the moved instance."""
-    from realtimepathtracingresearchframework_tpu.ops import traverse_tlas
+def test_tlas_animation_reuses_pass_program():
+    """Two-level animation: set_animation_frame rebuilds only the TLAS
+    side, the compiled pass program stays valid (the per-frame TLAS
+    arrays are call operands, no retrace) and both ray queries and
+    rendered frames follow the moved instance."""
+    scene = _animated_scene()
+    r = Renderer()
+    r.options = r.options.replace(use_tlas=True)
+    r.initialize(8, 8)
+    r.set_scene(scene)
+    cam = OrientedCamera.look_at([0.0, 0.0, 5.0], [0.0, 0.0, 0.0], fovy=40)
+    cfg = FrameConfig(camera=cam, params=RenderParams(max_path_depth=1))
+    blas_before = r.device_scene.tlas.blas_nodes
+    r.render(cfg)
+    alpha0 = r.readback_accumulation()[..., 3].mean()
+    fns_before = dict(r._pass_fns)
+    assert len(fns_before) == 1
 
-    monkeypatch.setenv("RPTR_FORCE_TLAS_PALLAS", "1")
-    traverse_tlas.INTERPRET = True
-    try:
-        scene = _animated_scene()
-        r = Renderer()
-        r.options = r.options.replace(use_tlas=True)
-        r.initialize(8, 8)
-        r.set_scene(scene)
-        assert r._use_tlas_pallas
-        tiles_before = r._blas_pallas_static.tri_tiles
-
-        t, tri, u, v = r.render_ray_queries(
-            np.array([[0.0, 0.0, 5.0]], np.float32),
-            np.array([[0.0, 0.0, -1.0]], np.float32),
-        )
-        assert tri[0] == 0
-
-        r.set_animation_frame(2)
-        # static BLAS side untouched (same device buffer object)
-        assert r._blas_pallas_static.tri_tiles is tiles_before
-        t, tri, u, v = r.render_ray_queries(
-            np.array([[0.0, 0.0, 5.0]], np.float32),
-            np.array([[0.0, 0.0, -1.0]], np.float32),
-        )
-        assert tri[0] == -1
-        t, tri, u, v = r.render_ray_queries(
-            np.array([[2.0, 0.0, 5.0]], np.float32),
-            np.array([[0.0, 0.0, -1.0]], np.float32),
-        )
-        assert tri[0] == 0
-    finally:
-        traverse_tlas.INTERPRET = False
+    r.set_animation_frame(2)
+    # static BLAS side untouched (same device buffer object)
+    assert r.device_scene.tlas.blas_nodes is blas_before
+    t, tri, u, v = r.render_ray_queries(
+        np.array([[0.0, 0.0, 5.0]], np.float32),
+        np.array([[0.0, 0.0, -1.0]], np.float32),
+    )
+    assert tri[0] == -1
+    t, tri, u, v = r.render_ray_queries(
+        np.array([[2.0, 0.0, 5.0]], np.float32),
+        np.array([[0.0, 0.0, -1.0]], np.float32),
+    )
+    assert tri[0] == 0
+    r.render(cfg)
+    assert r._pass_fns == fns_before  # same jit instance, no rebuild
+    # the triangle moved 2 units right: it covers fewer pixels of the
+    # centred view (or none), so the coverage changes with the pose
+    alpha2 = r.readback_accumulation()[..., 3].mean()
+    assert alpha2 != alpha0
 
 
 @pytest.mark.slow
@@ -213,7 +212,7 @@ def test_lod_with_animation_refit():
     selection the topology was built over and keeps the render loop's
     frame bookkeeping in sync — a base-LoD flatten refit against a
     coarse-LoD topology would pair new vertex arrays with mismatched
-    leaf/row indices (VERDICT r3 code-review finding)."""
+    leaf/row indices."""
     fine_tris = np.array(
         [
             [[-1, -1, 0], [0, -1, 0], [-0.5, 0, 0]],

@@ -387,7 +387,7 @@ def test_configure_for_keeps_scene_config():
 
 
 def test_configure_for_rebuilds_for_cpu_stage_options():
-    """CPU-stage scene options (use_tlas, quantized_geometry) change what
+    """CPU-stage scene options (use_tlas) change what
     _rebuild_scene builds; configure_for must rebuild, not just
     re-upload (RBO_STAGES_CPU_ONLY, render_params.glsl.h:107-114)."""
     r = _small_renderer(w=8, h=8)

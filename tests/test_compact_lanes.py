@@ -7,7 +7,7 @@ integrator.trace_paths).
 
 Tolerance note: radiance equality is asserted to ~1e-5 relative, not
 bitwise — XLA re-rounds elementwise chains differently across program
-shapes, and the BASELINE already exhibits the same ~6e-6 variance
+shapes, and the plain renderer already exhibits the same ~6e-6 variance
 between the unrolled and dynamic bounce loops with compaction off
 entirely (measured on CPU). Path STRUCTURE is asserted exactly:
 per-lane traced-ray counts and alpha must match bitwise, proving

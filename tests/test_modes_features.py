@@ -1,5 +1,5 @@
 """Mode-completion features: DISCARD_HISTORY reprojection, thin-lens DoF,
-data-capture POI/viewpoint generation (VERDICT round-1 item 8)."""
+data-capture POI/viewpoint generation."""
 
 import numpy as np
 import pytest

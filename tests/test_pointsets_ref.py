@@ -1,4 +1,4 @@
-"""Reference pointset-table parity (VERDICT round-1 item 10).
+"""Reference pointset-table parity.
 
 Golden values produced by compiling the reference's dual-compile GLSL
 pointsets (rendering/pointsets/{sobol,sample_order,bn_rng}.glsl +

@@ -271,81 +271,3 @@ def test_two_level_aovs_match_flattened():
         a = np.where(np.isfinite(a), a, 1e30)
         b = np.where(np.isfinite(b), b, 1e30)
         np.testing.assert_allclose(a, b, atol=1e-5)
-
-
-@pytest.mark.slow
-def test_renderer_tlas_pallas_matches_xla_walk(monkeypatch):
-    """The Pallas two-level kernel on the RENDER path (the
-    use_two_level -> xla cliff removed, VERDICT r2 weak #3): with the
-    kernel forced on (interpret mode on CPU), frames must match the XLA
-    nested walk within association-order rounding."""
-    from realtimepathtracingresearchframework_tpu.backend.params import (
-        RenderParams,
-    )
-    from realtimepathtracingresearchframework_tpu.backend.renderer import (
-        FrameConfig,
-        Renderer,
-    )
-    from realtimepathtracingresearchframework_tpu.models.camera import (
-        OrientedCamera,
-    )
-    from realtimepathtracingresearchframework_tpu.ops import traverse_tlas
-
-    scene_a = Scene.from_vkr_scene(procedural.cornell_box())
-    scene_b = Scene.from_vkr_scene(procedural.cornell_box())
-    cam = OrientedCamera.look_at([0, 1.0, 3.2], [0, 1.0, 0.0], fovy=50)
-    cfg = FrameConfig(camera=cam, params=RenderParams(max_path_depth=3))
-
-    r_x = Renderer()
-    r_x.options = r_x.options.replace(use_tlas=True)
-    r_x.initialize(24, 24)
-    r_x.set_scene(scene_a)
-    assert not r_x._use_tlas_pallas  # CPU default: XLA walk
-    r_x.render(cfg)
-
-    monkeypatch.setenv("RPTR_FORCE_TLAS_PALLAS", "1")
-    traverse_tlas.INTERPRET = True
-    try:
-        r_p = Renderer()
-        r_p.options = r_p.options.replace(use_tlas=True)
-        r_p.initialize(24, 24)
-        r_p.set_scene(scene_b)
-        assert r_p._use_tlas_pallas
-        r_p.render(cfg)
-    finally:
-        traverse_tlas.INTERPRET = False
-    np.testing.assert_allclose(
-        np.asarray(r_p.accum), np.asarray(r_x.accum), atol=2e-3, rtol=1e-3
-    )
-
-
-def test_tlas_pallas_state_resets_on_non_tlas_scene(monkeypatch):
-    """A two-level scene's Pallas TLAS buffers must not leak into a
-    later single-level scene (wrong jit key + dead BLAS tiles pinned)."""
-    from realtimepathtracingresearchframework_tpu.backend.params import (
-        RenderParams,
-    )
-    from realtimepathtracingresearchframework_tpu.backend.renderer import (
-        Renderer,
-    )
-    from realtimepathtracingresearchframework_tpu.models import procedural
-    from realtimepathtracingresearchframework_tpu.models.scene import Scene
-    from realtimepathtracingresearchframework_tpu.ops import traverse_tlas
-
-    monkeypatch.setenv("RPTR_FORCE_TLAS_PALLAS", "1")
-    traverse_tlas.INTERPRET = True
-    try:
-        r = Renderer()
-        r.options = r.options.replace(use_tlas=True)
-        r.initialize(16, 16)
-        r.set_scene(Scene.from_vkr_scene(procedural.cornell_box()))
-        assert r._use_tlas_pallas
-        r.options = r.options.replace(use_tlas=False)
-        r.set_scene(Scene.from_vkr_scene(procedural.cornell_box()))
-        assert not r._use_tlas_pallas
-        assert r._tlas_pallas is None
-        assert r.device_scene.tlas_pallas is None
-        cfg = r._integrator_config(RenderParams(max_path_depth=2))
-        assert not cfg.tlas_pallas and not cfg.two_level
-    finally:
-        traverse_tlas.INTERPRET = False

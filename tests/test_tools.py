@@ -69,13 +69,13 @@ def test_precompile_tool(tmp_path):
     import sys
 
     cache = str(tmp_path / "cache")
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               JAX_COMPILATION_CACHE_DIR=cache)
     out = subprocess.run(
         [sys.executable, "-m",
          "realtimepathtracingresearchframework_tpu.tools.precompile",
          "--scenes", "cornell", "--img", "16", "16",
-         "--variants", "PT_MEGAKERNEL", "--max-depth", "2",
-         "--cache-dir", cache],
+         "--variants", "PT_MEGAKERNEL", "--max-depth", "2"],
         capture_output=True, text=True, env=env, timeout=300,
     )
     assert out.returncode == 0, out.stderr[-500:]

@@ -1,12 +1,10 @@
 """Tiny-scene brute-force XLA traversal (ops/traverse_brute.py) vs the
-v2 Pallas kernel (interpret mode) and the threaded XLA reference.
+threaded XLA walk (ops/traverse.py), the reference traversal.
 
-The brute chain must be BIT-equal to the v2 kernel — same per-row
-Moller-Trumbore math, same lower-row-wins exact-t tie rule — because
-the renderer swaps it in transparently for scenes under
-_BRUTE_MAX_ROWS (backend/renderer.py) and the goldens pin radiance.
-On-chip confirmation: prof/prof_r5_c2.py (t bit-match 1.0 at 524K
-rays on the cornell box).
+The brute chain must return the walk's hits — same per-row
+Moller-Trumbore math, and on exact-t ties the lower row, which the walk
+reaches first — because the renderer swaps it in transparently for
+scenes under _BRUTE_MAX_ROWS (backend/renderer.py).
 """
 
 import numpy as np
@@ -15,16 +13,9 @@ import pytest
 import jax.numpy as jnp
 
 from realtimepathtracingresearchframework_tpu.ops import bvh as bvh_mod
+from realtimepathtracingresearchframework_tpu.ops import traverse
 from realtimepathtracingresearchframework_tpu.ops import traverse_brute as tbr
-from realtimepathtracingresearchframework_tpu.ops import traverse_pallas2 as tp2
 from realtimepathtracingresearchframework_tpu.ops.vec3 import Vec3
-
-
-@pytest.fixture(autouse=True)
-def _interpret_kernels():
-    tp2.INTERPRET = True
-    yield
-    tp2.INTERPRET = False
 
 
 def _soup(rng, n=48):
@@ -34,15 +25,19 @@ def _soup(rng, n=48):
     return v0, e1, e2
 
 
-@pytest.mark.parametrize("leaf_size", [32, 128])
-def test_brute_matches_v2_kernel(rng, leaf_size):
-    v0, e1, e2 = _soup(rng)
-    tb = bvh_mod.build_threaded_bvh(v0, e1, e2, leaf_size=leaf_size)
-    bb = tp2.pack_for_pallas2(tb)
-    rows = tuple(
+def _rows(tb):
+    return tuple(
         tuple(float(x) for x in tb.tri_rows[k, 0:9])
         for k in range(tb.tri_rows.shape[0])
     )
+
+
+@pytest.mark.parametrize("leaf_size", [4, 32])
+def test_brute_matches_threaded_walk(rng, leaf_size):
+    v0, e1, e2 = _soup(rng)
+    tb = bvh_mod.build_threaded_bvh(v0, e1, e2, leaf_size=leaf_size)
+    dev = traverse.threaded_to_device(tb)
+    rows = _rows(tb)
 
     n = 512
     ro = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
@@ -54,40 +49,33 @@ def test_brute_matches_v2_kernel(rng, leaf_size):
     t_min = jnp.zeros((n,), jnp.float32)
     t_max = jnp.full((n,), 2.0e16, jnp.float32)
 
-    # row-space ids (map_tri=False), the renderer's row_attrs contract
-    hk = tp2.closest_hit_pallas2(
-        bb, ro_d, rd_d, t_min=t_min, t_max=t_max, map_tri=False
+    hw = traverse.closest_hit_threaded(
+        dev, ro_d, rd_d, t_min, t_max, leaf_size=leaf_size
     )
-    hb = tbr.closest_hit_brute(rows, bb.row_tri, rov, rdv, t_min, t_max)
-    assert np.array_equal(np.asarray(hk.tri), np.asarray(hb.tri))
-    # on CPU the interpret-mode kernel and XLA:CPU contract FMAs
-    # differently (final-ulp drift — the caveat test_traverse_kernels.py
-    # documents); on TPU the two are bit-equal (prof/prof_r5_c2.py)
+    hb = tbr.closest_hit_brute(rows, dev.row_tri, rov, rdv, t_min, t_max)
+    assert np.array_equal(np.asarray(hw.tri), np.asarray(hb.tri))
+    # the walk's vectorized ray_tri and the brute chain's scalar-row
+    # form may contract FMAs differently: final-ulp drift only
     hit = np.asarray(hb.tri) >= 0
-    tk, tb_ = np.asarray(hk.t)[hit], np.asarray(hb.t)[hit]
-    assert np.abs(tk - tb_).max(initial=0) <= np.abs(tk).max() * 1e-6
-    assert np.allclose(np.asarray(hk.u)[hit], np.asarray(hb.u)[hit],
+    assert hit.any()
+    tw, tb_ = np.asarray(hw.t)[hit], np.asarray(hb.t)[hit]
+    assert np.abs(tw - tb_).max(initial=0) <= np.abs(tw).max() * 1e-6
+    assert np.allclose(np.asarray(hw.u)[hit], np.asarray(hb.u)[hit],
                        rtol=1e-5, atol=1e-6)
-    assert np.allclose(np.asarray(hk.v)[hit], np.asarray(hb.v)[hit],
+    assert np.allclose(np.asarray(hw.v)[hit], np.asarray(hb.v)[hit],
                        rtol=1e-5, atol=1e-6)
-
-    # triangle-space ids (map_tri=True)
-    hk2 = tp2.closest_hit_pallas2(bb, ro_d, rd_d, t_min=t_min, t_max=t_max)
-    hb2 = tbr.closest_hit_brute(
-        rows, bb.row_tri, rov, rdv, t_min, t_max, map_tri=True
-    )
-    assert np.array_equal(np.asarray(hk2.tri), np.asarray(hb2.tri))
 
     # occlusion with tight per-ray segments
-    t_ref = np.asarray(hk.t)
+    t_ref = np.asarray(hw.t)
     tmax_o = jnp.asarray(
         np.where(t_ref < 1e30, t_ref * 0.999, 1e30).astype(np.float32)
     )
-    ok = np.asarray(
-        tp2.occluded_pallas2(bb, ro_d, rd_d, t_min=t_min, t_max=tmax_o)
+    ow = np.asarray(
+        traverse.occluded_threaded(dev, ro_d, rd_d, t_min, tmax_o,
+                                   leaf_size=leaf_size)
     )
     ob = np.asarray(tbr.occluded_brute(rows, rov, rdv, t_min, tmax_o))
-    assert np.array_equal(ok, ob)
+    assert np.array_equal(ow, ob)
 
 
 def test_brute_dead_lane_contract(rng):
@@ -95,10 +83,7 @@ def test_brute_dead_lane_contract(rng):
     the integrator encodes inactive lanes that way."""
     v0, e1, e2 = _soup(rng, n=8)
     tb = bvh_mod.build_threaded_bvh(v0, e1, e2, leaf_size=32)
-    rows = tuple(
-        tuple(float(x) for x in tb.tri_rows[k, 0:9])
-        for k in range(tb.tri_rows.shape[0])
-    )
+    rows = _rows(tb)
     n = 64
     ro = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
     rd = rng.normal(size=(n, 3)).astype(np.float32)
@@ -106,7 +91,8 @@ def test_brute_dead_lane_contract(rng):
     rov = Vec3(*(jnp.asarray(ro[:, k]) for k in range(3)))
     rdv = Vec3(*(jnp.asarray(rd[:, k]) for k in range(3)))
     zero = jnp.zeros((n,), jnp.float32)
-    h = tbr.closest_hit_brute(rows, None, rov, rdv, zero, zero)
+    h = tbr.closest_hit_brute(rows, jnp.asarray(tb.row_tri), rov, rdv,
+                              zero, zero)
     assert np.all(np.asarray(h.tri) == -1)
     assert np.all(np.asarray(h.t) == np.float32(2.0e32))
     assert not np.any(np.asarray(tbr.occluded_brute(rows, rov, rdv, zero, zero)))
